@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Free-fiber relaxation + Brownian fluctuation example — the
-TPU-framework version of the reference's Many_Free_Fibers.py demo
+JAX version of the reference's Many_Free_Fibers.py demo
 (reference: cRigid_cFibers/Many_Free_Fibers.py:103-309): a stack of
 identical fibers, semi-implicit bending, midpoint stochastic scheme,
 end-to-end distances written each save.

@@ -3,7 +3,7 @@
 A dense periodic box of 12-blob shells evolved with the reference's
 recommended stochastic_Slip_Trapz scheme, with every mobility product
 routed through the spectral Ewald engine (domain='periodic_spectral',
-ops/ewald.py) — the TPU-native replacement for the reference's optional
+ops/ewald.py) — the accelerator replacement for the reference's optional
 FMM far field (reference: mobility/mobility.py:775-829). Ends with a
 radial-distribution analysis of the trajectory (utils/gr.py).
 

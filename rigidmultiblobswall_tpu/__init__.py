@@ -1,4 +1,4 @@
-"""rigidmultiblobswall_tpu: TPU-native rigid multiblob Stokesian/Brownian dynamics.
+"""rigidmultiblobswall_tpu: rigid multiblob Stokesian/Brownian dynamics in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of
 BCAM-CFD/RigidMultiblobsWall (see /root/reference): suspensions of rigid
@@ -7,7 +7,7 @@ optionally above a single no-slip wall, with deterministic and stochastic
 (Brownian) temporal integrators, articulated bodies, active slip, rollers
 and lubrication corrections.
 
-Design (TPU-first, not a port):
+Design (accelerator-first, not a port):
   - functional core: pytree state {positions (B,3), quaternions (B,4)},
     pure step functions, `lax.scan` over time, explicit PRNG keys.
   - one XLA/Pallas implementation of every pairwise kernel replaces the
@@ -15,7 +15,7 @@ Design (TPU-first, not a port):
   - saddle-point mobility solves run fully in-XLA: matrix-free operator,
     batched per-body block-diagonal preconditioner, restarted GMRES and
     Lanczos M^{1/2}z as `lax.while_loop`s.
-  - multi-chip scaling via `jax.sharding.Mesh` + `shard_map` row-block
+  - multi-device scaling via `jax.sharding.Mesh` + `shard_map` row-block
     decomposition of the O(N^2) pairwise products (see `parallel/`).
 """
 

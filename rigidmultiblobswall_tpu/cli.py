@@ -24,12 +24,12 @@ import numpy as np
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="TPU-native rigid multiblob dynamics")
+        description="Rigid multiblob dynamics in JAX")
     parser.add_argument("--input-file", dest="input_file", type=str,
                         default="data.main")
     parser.add_argument("--print-residual", action="store_true")
     parser.add_argument("--f64", action="store_true",
-                        help="run in float64 (CPU or TPU-emulated)")
+                        help="run in float64")
     args = parser.parse_args(argv)
 
     if args.f64:
@@ -41,6 +41,9 @@ def main(argv=None):
     import jax.numpy as jnp
 
     from .io import input_file as input_mod, scene
+    from .utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
     from .models import integrators, kinematics as kin, solvers
 
     cfg = input_mod.read_input(args.input_file)

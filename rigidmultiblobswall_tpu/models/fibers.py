@@ -1,6 +1,6 @@
 """Inextensible-fiber (Kirchhoff rod) suspensions.
 
-TPU-native re-design of the reference's C++ fiber stack
+Accelerator re-design of the reference's C++ fiber stack
 (/root/reference/cRigid_cFibers/c_fibers_obj.cpp, driven by
 Many_Free_Fibers.py / Carpet_of_Fibers.py): each fiber is a chain of
 B = L+1 blobs connected by L inextensible links of length ds, evolved by
@@ -24,14 +24,14 @@ Formulation (c_fibers_obj.cpp:1024-1135):
   no constraint rows are needed and the system is square
   (nOm + nTheta = 3B).
 
-TPU-first design decisions (vs the reference):
+Design decisions (vs the reference):
   * All fibers share one static (F, L, 3) shape; every per-fiber loop is
     a batched einsum / cumsum, no Python loops over fibers.
   * The reference's per-fiber LAPACK banded saddle PC
     (c_fibers_obj.cpp:639-882: permuted dgbsv on a bands-limited local
     mobility) becomes a batched dense LU of the per-fiber system matrix
     [K + impl M_f D4 K, -M_f B] with the *full* per-fiber mobility —
-    batched (3B)^2 factorizations are MXU-friendly and the PC is exact
+    batched (3B)^2 factorizations are matmul-friendly and the PC is exact
     (not band-truncated) whenever hydrodynamics is per-fiber
     ("batched"), making GMRES converge in O(1) iterations.
   * hydrodynamics="batched" (reference DomainInt 0/2: no interfiber
@@ -487,7 +487,7 @@ def system_matrix_batched(sus: FiberSuspension, impl, state: FiberState,
     """(F, 3B, 3B) per-fiber matrix [K + impl M_f D4 K | -M_f B] in
     (om, theta) column order. In 'batched' mode this IS the full
     operator; in 'full' mode it is the block-diagonal preconditioner
-    (the TPU replacement for the reference's banded LAPACK PC,
+    (the batched replacement for the reference's banded LAPACK PC,
     c_fibers_obj.cpp:639-882)."""
     if m_batched is None:
         m_batched = mobility_dense_batched(sus, blob_positions(sus, state))

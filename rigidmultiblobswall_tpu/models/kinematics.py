@@ -11,6 +11,7 @@ for the small per-body preconditioner blocks.)
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
 from ..ops import quaternion as quat
 from .system import State, System
@@ -27,7 +28,10 @@ def blob_rel_positions(system: System, state: State, i: int):
     _, q = type_arrays(system, state, i)
     R = quat.rotation_matrix(q)  # (c,3,3)
     ref = jnp.asarray(system.types[i].ref_config, dtype=state.pos.dtype)
-    return jnp.einsum("cij,nj->cni", R, ref)
+    # full f32: at TF32's three digits blob positions would carry 1e-3
+    # relative errors into every pair distance
+    return jnp.einsum("cij,nj->cni", R, ref,
+                      precision=lax.Precision.HIGHEST)
 
 
 def blob_positions(system: System, state: State):
@@ -105,7 +109,8 @@ def active_slip(system: System, state: State, dtype=None):
             _, q = type_arrays(system, state, i)
             R = quat.rotation_matrix(q)
             slip = jnp.einsum("cij,nj->cni", R,
-                              jnp.asarray(t.slip_ref, dtype=dtype))
+                              jnp.asarray(t.slip_ref, dtype=dtype),
+                              precision=lax.Precision.HIGHEST)
             out.append(slip.reshape(t.count * t.num_blobs, 3))
     return jnp.concatenate(out, axis=0)
 

@@ -1,6 +1,6 @@
 """Lubrication-corrected dynamics for sphere suspensions near a wall.
 
-TPU-native re-design of the reference Lub_Solver + Lubrication_Class
+Accelerator re-design of the reference Lub_Solver + Lubrication_Class
 (/root/reference/Lubrication/Lub_Solver.py:24-1079,
 Lubrication/Lubrication_Class.cc:35-700):
 
@@ -11,7 +11,7 @@ Lubrication/Lubrication_Class.cc:35-700):
   * the pairwise + wall resistance correction Delta_R = R_Sup - R_MB is
     precomputed per step as per-pair 6x6 blocks: dense-masked for small B
     or on a fixed-capacity neighbor list (`max_neighbors`, O(B K) memory
-    with an overflow counter) — the TPU replacement for the reference's
+    with an overflow counter) — the static-shape replacement for the reference's
     cKDTree + scipy-COO sparse assembly;
   * the lubrication-corrected mobility solve
     U = (I + M dR)^{-1}(X + M Xm) runs by right-preconditioned in-XLA
@@ -337,7 +337,7 @@ class LubSolver:
     solver_tolerance: float = 1e-6
     lanczos_max_iter: int = 100
     # if set, Delta_R is assembled on a fixed-capacity neighbor list
-    # (O(B K) memory, the TPU replacement for the reference's cKDTree+COO
+    # (O(B K) memory, the static-shape replacement for the reference's cKDTree+COO
     # sparse path); None keeps the dense-masked O(B^2) blocks
     max_neighbors: Optional[int] = None
     use_pc: bool = True           # precondition (I + M dR) like Lub_Solver
@@ -367,8 +367,8 @@ class DeltaRBlocks(NamedTuple):
 
 
 class SparseDeltaR(NamedTuple):
-    """Delta_R on a fixed-capacity neighbor list: O(B K) memory, the TPU
-    equivalent of the reference's cKDTree + C++ COO assembly
+    """Delta_R on a fixed-capacity neighbor list: O(B K) memory, the
+    static-shape equivalent of the reference's cKDTree + C++ COO assembly
     (Lub_Solver.py:98-186, Lubrication_Class.cc:554-700)."""
 
     idx: jax.Array       # (B,K) neighbor indices (self-padded)
@@ -519,7 +519,7 @@ def delta_r_sub_mult(blocks, v3, rows=slice(3, 6), cols=slice(0, 3)):
 
 
 def make_lub_pc(sol: LubSolver, blocks):
-    """Right preconditioner for (I + M dR): the TPU replacement for the
+    """Right preconditioner for (I + M dR): the in-XLA replacement for the
     reference's CHOLMOD-factorized R_Sup PC with isolated-particle bypass
     (Lubrucation_solve, Lub_Solver.py:541-588; IpMDR_PC :426-443).
 

@@ -53,8 +53,8 @@ def force_torque_calculator(system: System, state: State, r_blobs):
             cutoff=(system.blob_blob_cutoff or None),
             grid_dim=system.blob_blob_grid_dim,
             cell_capacity=system.blob_blob_cell_capacity,
-            # wall slabs declare a static z extent so the fused Pallas
-            # cell sweep applies despite the open z direction
+            # wall slabs declare a static z extent so the pre-gathered
+            # cell layout applies despite the open z direction
             z_extent=(system.spectral_wall_height
                       if system.spectral_wall_height > 0 else None))
     else:
@@ -139,7 +139,7 @@ def solve_mobility_problem(
     (quaternion_integrator_multi_bodies.py:1441-1547).
 
     m_dense: 'auto' materializes the blob mobility when it fits the memory
-    budget so each GMRES iteration is one MXU matmul; None forces the
+    budget so each GMRES iteration is one dense matvec; None forces the
     matrix-free pairwise engine; or pass a prebuilt (3N,3N) matrix.
     recycle: ops/gmres.RecycleState for GCRO deflation (slow modes
     projected out, solution corrected through the recycle directions);

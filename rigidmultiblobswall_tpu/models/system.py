@@ -3,7 +3,7 @@
 The reference represents a suspension as a Python list of `Body` objects
 with per-body numpy arrays and ~25 injected function attributes
 (/root/reference/body/body.py:13, multi_bodies/multi_bodies.py:1318-1394).
-The TPU-native design splits that into:
+This framework splits that into:
 
   * `BodyType` / `System` — static, hashable geometry and physics
     parameters. Bodies are grouped by type (identical reference
@@ -99,10 +99,12 @@ class System:
     spectral_grid_max: int = 256
     # plane-matmul gridding knobs (see ops/ewald.EwaldParams): particles
     # per x-bucket (0 = auto 4x mean), yz-planes per lax.map step, and
-    # MXU precision for the gridding matmuls
+    # the precision of the gridding matmuls ("highest" = full f32; the
+    # GPU's default and "high" run them as TF32, which misses
+    # spectral_tol — see PERF.md)
     spectral_bucket_capacity: int = 0
     spectral_plane_batch: int = 4
-    spectral_precision: str = "high"
+    spectral_precision: str = "highest"
     # near-field cell-list slots per cell (0 = auto: mean occupancy +
     # 4 sigma; overflow is counted in the plan's n_dropped_cells)
     spectral_cell_capacity: int = 0

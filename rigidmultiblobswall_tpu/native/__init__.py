@@ -3,7 +3,7 @@
 The reference ships compiled host-side helpers next to its Python code
 (e.g. the radial-distribution executable
 multi_bodies/examples/Radial_Dist_Test/gr_pseudo2D_single_blob.cpp and
-the visit_writer C library).  This package holds their TPU-framework
+the visit_writer C library).  This package holds this framework's
 equivalents as plain C-ABI shared libraries: sources live here, are
 compiled on first use with the system toolchain, and are cached by
 source hash.  Every native entry point has a pure-numpy fallback in its

@@ -1,6 +1,6 @@
 // Native core for the pseudo-2D radial distribution function.
 //
-// TPU-framework equivalent of the reference's standalone analysis
+// This framework's equivalent of the reference's standalone analysis
 // executable (reference: multi_bodies/examples/Radial_Dist_Test/
 // gr_pseudo2D_single_blob.cpp:20-85): accumulate a pair-distance
 // histogram with minimum-image convention along x and y only (quasi-2D

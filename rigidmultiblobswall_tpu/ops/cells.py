@@ -1,4 +1,4 @@
-"""Shared fixed-capacity linked-cell layouts (TPU-native neighbor lists).
+"""Shared fixed-capacity linked-cell layouts (static-shape neighbor lists).
 
 One implementation of the cell machinery used by BOTH short-range pair
 sweeps — the spectral engine's near field (ops/ewald.py) and the
@@ -11,14 +11,12 @@ and memory behavior stay in lockstep:
 - `neighbor_table` / `wrap_counts`: the 27-cell stencil with periodic
   wrap bookkeeping (host-static table, device wrap counts);
 - `padded_source_ids` + `gather_src_pos` / `gather_tgt_xyz`: the
-  pre-gathered (cell, 27*capacity) source layout consumed by the fused
-  Pallas kernels. Per-pair gathers are the TPU killer — one plan-time
-  gather plus dense VPU tiles are not. `gather_src_pos` switches to
-  per-COMPONENT scalar gathers past a size threshold: the vector-row
-  path's (C_pad*S, 3) temporaries tile the size-3 minor dim to the
-  128-lane layout (a 42x padding blowup, measured 5.1 GB per temporary
-  at 196k blobs), while component gathers stay clean 2-D arrays at ~3x
-  the gather cost — the right trade exactly when memory binds.
+  pre-gathered (cell, S >= 27*capacity) source layout consumed by the
+  near-field kernel (ops/ewald.py) and the layout force sweep: one
+  gather per configuration, then dense per-cell tiles. `gather_src_pos`
+  switches to per-COMPONENT gathers past a size threshold, so no
+  (C*S, 3) temporary with a size-3 minor dimension is ever built at
+  large sizes.
 
 Replaces the reference's scipy cKDTree neighbor searches
 (multi_bodies/forces_numba.py:203, Lubrication/Lub_Solver.py:108-116)
@@ -92,11 +90,6 @@ def wrap_counts(dims):
                        for k in (-1, 0, 1)], jnp.int32)
     raw = c3[:, None, :] + o27[None, :, :]
     return jnp.floor_divide(raw, jnp.asarray(dims, jnp.int32))
-
-
-def lane_pad_sources(cap):
-    """Padded source width S for the (cell, 27*cap) layout (128-lane)."""
-    return -(-27 * cap // 128) * 128
 
 
 def padded_source_ids(cell_table, nbr, n, dims, cap, C_pad, S):

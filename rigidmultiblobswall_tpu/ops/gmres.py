@@ -17,6 +17,12 @@ import jax.numpy as jnp
 from jax import lax
 
 
+def _mm(a, b):
+    """Matrix product at full f32 precision: Krylov orthogonalisation
+    loses basis orthogonality at TF32's three digits."""
+    return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
+
+
 class GmresResult(NamedTuple):
     x: jax.Array
     residual_norm: jax.Array
@@ -76,10 +82,10 @@ def gmres(
             w = a_tilde(V[j])
             # classical Gram-Schmidt, applied twice for stability
             mask = (jnp.arange(m + 1) <= j).astype(dtype)
-            h1 = (V @ w) * mask
-            w = w - V.T @ h1
-            h2 = (V @ w) * mask
-            w = w - V.T @ h2
+            h1 = _mm(V, w) * mask
+            w = w - _mm(V.T, h1)
+            h2 = _mm(V, w) * mask
+            w = w - _mm(V.T, h2)
             h = h1 + h2
             wnorm = jnp.linalg.norm(w)
             V = V.at[j + 1].set(jnp.where(wnorm > 0, w / jnp.where(wnorm > 0, wnorm, 1.0), 0.0))
@@ -133,7 +139,7 @@ def gmres(
         Rm = jnp.where(jnp.eye(m, dtype=bool) & dz[None, :], 1.0, Rm)
         gm = jnp.where(used & ~dz, g[:m], 0.0)
         ym = jax.scipy.linalg.solve_triangular(Rm, gm, lower=False)
-        y = y + V[:m].T @ ym
+        y = y + _mm(V[:m].T, ym)
         return y, j, res
 
     def outer_cond(state):
@@ -242,11 +248,10 @@ def gmres_lockstep(
             j, V, R, Hraw0, cs, sn, g, res = state
             w = a_tilde(V[:, j])                               # (nrhs, n)
             # classical Gram-Schmidt, applied twice for stability. The
-            # batched contractions MUST run at full f32: the default TPU
-            # einsum precision (bf16 MXU) loses basis orthogonality and
-            # the Givens residual estimate silently diverges from the
-            # true residual (the single-RHS path's mat-vec products
-            # lower to f32 VPU reductions and never see this).
+            # batched contractions MUST run at full f32: at the default
+            # precision (TF32 on the GPU) the basis loses orthogonality
+            # and the Givens residual estimate silently diverges from
+            # the true residual.
             prec = jax.lax.Precision.HIGHEST
             mask = (jnp.arange(m + 1) <= j).astype(dtype)[None]
             h1 = jnp.einsum("bkn,bn->bk", V, w, precision=prec) * mask
@@ -321,10 +326,10 @@ def gmres_lockstep(
     r_init = r0
     if recycle is not None:
         valid = recycle.valid
-        alpha0 = jnp.where(valid, r0 @ recycle.C.T,
+        alpha0 = jnp.where(valid, _mm(r0, recycle.C.T),
                            jnp.zeros((nrhs, recycle.C.shape[0]), dtype))
-        y_init = alpha0 @ recycle.U
-        r_init = r0 - alpha0 @ recycle.C
+        y_init = _mm(alpha0, recycle.U)
+        r_init = r0 - _mm(alpha0, recycle.C)
 
     def outer_body(state):
         y, r, rnorm, iters, cycles, _ = state
@@ -373,10 +378,9 @@ def gmres_lockstep(
 
 class RecycleState(NamedTuple):
     """Recycled deflation subspace, carried across the solves of a step
-    and across steps (SCALING.md round-2 conclusion: with the block-
-    diagonal PC near-optimal, the remaining sweep-count lever is
-    deflating the slow modes — measured 5 -> 1 iterations on the bench
-    geometry, tools/deflation_experiment.py).
+    and across steps (with the block-diagonal PC near-optimal, the
+    remaining sweep-count lever is deflating the slow modes —
+    tools/deflation_experiment.py measures it).
 
     U: (k, n) directions in the right-preconditioned y-space;
     C: (k, n) orthonormal rows with A~ U ~= C (refreshed once per step
@@ -409,7 +413,7 @@ def refresh_recycle(a_tilde_multi, rec: RecycleState) -> RecycleState:
     keep = S > 1e-4 * jnp.maximum(S[0], 1e-30)   # (k,) well-conditioned
     Sinv = jnp.where(keep, 1.0 / jnp.where(keep, S, 1.0), 0.0)
     C = (W * keep[None, :]).T                    # (k, n), zeroed slots
-    Unew = (Sinv[:, None] * Vh) @ rec.U          # (k, n)
+    Unew = _mm(Sinv[:, None] * Vh, rec.U)          # (k, n)
     Unew = Unew * keep[:, None]
     good = rec.valid & jnp.any(keep)
     return RecycleState(U=jnp.where(good, Unew, rec.U),
@@ -418,10 +422,10 @@ def refresh_recycle(a_tilde_multi, rec: RecycleState) -> RecycleState:
 
 def _deflate_setup(rec, r0):
     """Initial GCRO projection: y0 = alpha0 @ U, r = (I - C C^T) r0."""
-    alpha0 = jnp.where(rec.valid, rec.C @ r0, jnp.zeros(rec.C.shape[0],
+    alpha0 = jnp.where(rec.valid, _mm(rec.C, r0), jnp.zeros(rec.C.shape[0],
                                                         r0.dtype))
-    y0 = alpha0 @ rec.U
-    r = r0 - alpha0 @ rec.C
+    y0 = _mm(alpha0, rec.U)
+    r = r0 - _mm(alpha0, rec.C)
     return y0, r
 
 
@@ -448,7 +452,7 @@ def gmres_deflated(
     the explicitly recomputed true residual (the Givens estimate cannot
     see the deflation inexactness). With collect_basis, also returns a
     new RecycleState harvested from the union of (U, Krylov basis) via
-    an SVD of the assembled small matrix (TPU-friendly; no nonsymmetric
+    an SVD of the assembled small matrix (accelerator-friendly; no nonsymmetric
     eigensolve)."""
     n = b.shape[0]
     dtype = b.dtype
@@ -486,14 +490,14 @@ def gmres_deflated(
         def inner_body(state):
             j, V, R, Hraw, Bp, cs, sn, g, res = state
             w = a_tilde(V[j])
-            cc = C @ w                                   # (k,)
-            w = w - cc @ C
+            cc = _mm(C, w)                                   # (k,)
+            w = w - _mm(cc, C)
             Bp = Bp.at[j].set(cc)
             mask = (jnp.arange(m + 1) <= j).astype(dtype)
-            h1 = (V @ w) * mask
-            w = w - V.T @ h1
-            h2 = (V @ w) * mask
-            w = w - V.T @ h2
+            h1 = _mm(V, w) * mask
+            w = w - _mm(V.T, h1)
+            h2 = _mm(V, w) * mask
+            w = w - _mm(V.T, h2)
             h = h1 + h2
             wnorm = jnp.linalg.norm(w)
             V = V.at[j + 1].set(
@@ -537,7 +541,7 @@ def gmres_deflated(
         ym = jax.scipy.linalg.solve_triangular(Rm, gm, lower=False)
         # GCRO correction: kill the C-components the inner solution
         # pushed back in (alpha update through U)
-        y = y + V[:m].T @ ym - (Bp.T @ ym) @ rec.U
+        y = y + _mm(V[:m].T, ym) - _mm(_mm(Bp.T, ym), rec.U)
         return y, j, (V, Hraw, Bp, jnp.asarray(j))
 
     r0 = b if cold_start else b - matvec(x0)
@@ -617,7 +621,7 @@ def harvest_recycle(rec: RecycleState, V, Hraw, Bp, j_used, k):
     # the BIG scale; zero rows are inert downstream
     genuine = svals[-k:] < 0.5 * BIG
     Z = Z * genuine[:, None]
-    Unew = Z[:, :kold] @ rec.U + Z[:, kold:] @ V[:m]
+    Unew = _mm(Z[:, :kold], rec.U) + _mm(Z[:, kold:], V[:m])
     # C is stale until the next refresh_recycle; carry the basis change
     # through valid=True (refresh re-biorthonormalizes at the new
     # operator before any deflated solve uses it)

@@ -17,6 +17,12 @@ import jax.numpy as jnp
 from jax import lax
 
 
+def _mm(a, b):
+    """Matrix product at full f32 precision: Krylov orthogonalisation
+    loses basis orthogonality at TF32's three digits."""
+    return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
+
+
 class LanczosResult(NamedTuple):
     noise: jax.Array
     iterations: jax.Array
@@ -38,7 +44,7 @@ def stochastic_forcing_lanczos(
     mobility_mult: v -> M v for the SPD operator M.
     L_mult: optional map applied to the result (preconditioned variant:
         the Lanczos runs on P M P^T and the caller supplies L = P^{-1}).
-    check_every: evaluate the noise (a small eigh, serial on TPU) and test
+    check_every: evaluate the noise (a small, serial eigh) and test
         convergence only every k-th iteration (k=1 matches the reference
         cadence; larger k trades a few extra matvecs for fewer eighs).
     """
@@ -63,8 +69,8 @@ def stochastic_forcing_lanczos(
         eig_vals, eig_vecs = jnp.linalg.eigh(T)
         sqrt_vals = jnp.sqrt(jnp.maximum(eig_vals, 0.0))
         e1_weights = eig_vecs[0, :]  # Q^T e1
-        coeff = eig_vecs @ (sqrt_vals * e1_weights)
-        return (V[:m].T @ coeff) * (v_norm * factor)
+        coeff = _mm(eig_vecs, sqrt_vals * e1_weights)
+        return _mm(V[:m].T, coeff) * (v_norm * factor)
 
     def cond(state):
         i, V, h_diag, h_sup, noise, noise_old, converged = state
@@ -75,7 +81,7 @@ def stochastic_forcing_lanczos(
         vi = V[i]
         w = mobility_mult(vi)
         w = w - jnp.where(i > 0, h_sup[jnp.maximum(i - 1, 0)], 0.0) * V[jnp.maximum(i - 1, 0)]
-        hd = jnp.dot(w, vi)
+        hd = _mm(w, vi)
         w = w - hd * vi
         hs = jnp.linalg.norm(w)
         w = jnp.where(hs > 0, w / jnp.where(hs > 0, hs, 1.0),
@@ -86,8 +92,8 @@ def stochastic_forcing_lanczos(
 
         # full reorthogonalization against the built basis
         mask = (jnp.arange(m + 1) <= i).astype(dtype)
-        proj = (V @ w) * mask
-        w = w - V.T @ proj
+        proj = _mm(V, w) * mask
+        w = w - _mm(V.T, proj)
         V = V.at[i + 1].set(w)
 
         do_check = ((i + 1) % check_every == 0) | (i + 1 >= m)

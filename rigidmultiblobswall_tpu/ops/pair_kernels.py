@@ -1,18 +1,21 @@
-"""Direct-block fused pairwise mobility matvecs (Pallas TPU).
+"""Direct-block fused pairwise mobility matvecs (Pallas, Triton route).
 
-One kernel template evaluates the 3x3 RPY/Blake pair blocks *directly* on
-the VPU and contracts them against the source vector in-register, with a
-per-lane accumulator reduced once per row tile. This replaces both the
-SFM rank-1 MXU formulation (ops/mobility_sfm; its fused Pallas variant
-was removed once this engine superseded it) and the
-generic XLA tile engine for the hot products:
+One kernel template evaluates the 3x3 RPY/Blake pair blocks *directly*
+in registers and contracts them against the source vector, so no pair
+block ever reaches device memory. It replaces both XLA formulations for
+the hot f32 products on the GPU:
 
-- the SFM form was MXU-dot-bound (7 column-group dots per tile, each lane-
-  padded to 128 -> ~5% MXU utilization) and its rank-1 expansion
-  amplifies rounding by |q|^2, so it cannot use bf16;
-- the direct-block form has NO MXU work and no (N, 47) VMEM-resident
-  right-hand side, so it runs at the VPU roofline and scales to 100k+
-  blobs single-chip.
+- the SFM rank-1 form (ops/mobility_sfm) amplifies rounding by |q|^2
+  and loses about 8 bits in f32;
+- the generic tile engine (mobility.pairwise_matvec) streams
+  (row_tile, N, 3, 3) pair blocks through device memory.
+
+The work is O(N^2) f32 FMA + rsqrt with a 3-vector output per target;
+no tensor cores are involved. Layout: the grid runs over target tiles
+only; each program loops over source tiles inside the kernel (masked
+loads), keeps its sums in registers and stores once (masked), the shape
+of the reference's pycuda kernels (one thread per target, a loop over
+all sources).
 
 Couplings (reference kernel family, /root/reference/mobility/mobility_pycuda.py):
   tt    velocity_from_force            (:150)
@@ -39,10 +42,44 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from . import backend
 
 _NCOMP = {"tt": (3, 3), "tr": (3, 3), "rt": (3, 3), "rr": (3, 3),
           "grand": (6, 6)}
+
+# (target tile, source tile, warps): powers of two, chosen on the card
+# for every coupling (PERF.md, "Kernel decisions"; tools/kernel_tiles.py)
+TILES = (16, 32, 4)
+
+
+def _wall_fields(R2, Rz, zs_row):
+    """Wall TT scalar fields (Swan-Brady image system) on raw
+    (dx, dy, Rz) products: f1, g2, g3, g4, f5 with
+    m_ab += f1 delta_ab + g2 e_a e_b + (g3, g4, f5 z-row/col terms)."""
+    invR = lax.rsqrt(R2)
+    invR2 = invR * invR
+    invR3 = invR * invR2
+    invR5 = invR3 * invR2
+    ez = Rz * invR
+    ez2 = ez * ez
+    h_hat = zs_row / Rz
+    hh = h_hat * (1.0 - h_hat)
+
+    f1 = -(3.0 * (1.0 + 2.0 * hh * ez2) * invR
+           + 2.0 * (1.0 - 3.0 * ez2) * invR3
+           - 2.0 * (1.0 - 5.0 * ez2) * invR5) / 3.0
+    f2 = -(3.0 * (1.0 - 6.0 * hh * ez2) * invR
+           - 6.0 * (1.0 - 5.0 * ez2) * invR3
+           + 10.0 * (1.0 - 7.0 * ez2) * invR5) / 3.0
+    f3 = ez * (3.0 * h_hat * (1.0 - 6.0 * (1.0 - h_hat) * ez2) * invR
+               - 6.0 * (1.0 - 5.0 * ez2) * invR3
+               + 10.0 * (2.0 - 7.0 * ez2) * invR5) * 2.0 / 3.0
+    f4 = ez * (3.0 * h_hat * invR - 10.0 * invR5) * 2.0 / 3.0
+    f5 = -(3.0 * h_hat * h_hat * ez2 * invR + 3.0 * ez2 * invR3
+           + (2.0 - 15.0 * ez2) * invR5) * 4.0 / 3.0
+    return f1, f2 * invR2, f3 * invR, f4 * invR, f5
 
 
 def _tt_coeffs(r2, invr, self_mask, zero):
@@ -80,17 +117,6 @@ def _cross_coeff(r2, invr, zero):
     r = r2 * invr
     c = jnp.where(r >= 2.0, invr3, 0.5 * (1.0 - 0.375 * r))
     return jnp.where(zero, 0.0, c)
-
-
-def _wall_tt_g(R2, Rz, zs):
-    """Wall TT scalar set folded onto raw (dx, dy, Rz) products:
-    m_ab += f1 delta_ab + g2 e_a e_b + (g3, g4, f5 z-row/col terms).
-    ONE implementation shared with the dense builder — a wall-correction
-    fix lands in both kernels (plain jnp, traces fine inside Pallas).
-    zs broadcasts as the source height."""
-    from .mobility_pallas import _wall_fields
-
-    return _wall_fields(R2, Rz, zs)
 
 
 def _wall_rr_g(R2, Rz):
@@ -133,12 +159,12 @@ def _wall_cross_g(R2, Rz, h):
 
 def _tt_condense(dx, dy, dz, xy2, r2, invr, self_mask, zero, wall, Rz, zs):
     """Condensed M_tt coefficients (5 scalars per pair): application to
-    any number of RHS columns then costs ~10 VPU ops each (the condense
+    any number of RHS columns then costs ~10 flops each (the condense
     cost — the dominant per-pair work — is shared, see n_rhs)."""
     c1, c2 = _tt_coeffs(r2, invr, self_mask, zero)
     if wall:
         R2 = xy2 + Rz * Rz
-        f1, g2, g3, g4, f5 = _wall_tt_g(R2, Rz, zs)
+        f1, g2, g3, g4, f5 = _wall_fields(R2, Rz, zs)
         A = c1 + f1
         S = c2 + g2
         P = c2 * dz + g2 * Rz + g3
@@ -163,14 +189,6 @@ def _diag_apply(coeffs, dx, dy, vx, vy, vz):
     return tx, ty, tz
 
 
-def _tt_apply(dx, dy, dz, xy2, r2, invr, self_mask, zero, wall, Rz, zs,
-              vx, vy, vz):
-    """t = M_tt v with condensed coefficients (5 scalars per pair)."""
-    coeffs = _tt_condense(dx, dy, dz, xy2, r2, invr, self_mask, zero,
-                          wall, Rz, zs)
-    return _diag_apply(coeffs, dx, dy, vx, vy, vz)
-
-
 def _rr_condense(dx, dy, dz, xy2, r2, invr, self_mask, zero, wall, Rz):
     c1, c2 = _rr_coeffs(r2, invr, self_mask, zero)
     if wall:
@@ -187,13 +205,6 @@ def _rr_condense(dx, dy, dz, xy2, r2, invr, self_mask, zero, wall, Rz):
         P = Q = c2 * dz
         mzz = c1 + c2 * dz * dz
     return A, S, P, Q, mzz
-
-
-def _rr_apply(dx, dy, dz, xy2, r2, invr, self_mask, zero, wall, Rz,
-              vx, vy, vz):
-    coeffs = _rr_condense(dx, dy, dz, xy2, r2, invr, self_mask, zero,
-                          wall, Rz)
-    return _diag_apply(coeffs, dx, dy, vx, vy, vz)
 
 
 def _cross_condense(dx, dy, dz, xy2, r2, invr, zero, wall, which, Rz, h):
@@ -241,117 +252,109 @@ def _cross_apply_condensed(coeffs, dx, dy, dz, which, vx, vy, vz):
     return tx, ty, tz
 
 
-def _cross_apply(dx, dy, dz, xy2, r2, invr, zero, wall, which, Rz, h,
-                 vx, vy, vz):
-    """t = M v for the cross blocks. which='tr' (U from T, wall height =
-    z_target) or 'rt' (W from F, wall height = z_source). Core part is the
-    antisymmetric [d x] for both."""
-    coeffs = _cross_condense(dx, dy, dz, xy2, r2, invr, zero, wall, which,
-                             Rz, h)
-    return _cross_apply_condensed(coeffs, dx, dy, dz, which, vx, vy, vz)
-
-
-def _pair_kernel(qtx_ref, qty_ref, qtz_ref, qsx_ref, qsy_ref, qsz_ref,
-                 v_ref, out_ref, *, coupling, wall, self_interaction,
-                 n_rhs=1):
-    i = pl.program_id(0)
-    c = pl.program_id(1)
-    n_cols = pl.num_programs(1)
-    tr = qtx_ref.shape[1]
-    tc = qsx_ref.shape[1]
-
-    xt = qtx_ref[0, :]
-    yt = qty_ref[0, :]
-    zt = qtz_ref[0, :]
-    xs = qsx_ref[0, :]
-    ys = qsy_ref[0, :]
-    zs = qsz_ref[0, :]
-
-    dx = xt[:, None] - xs[None, :]
-    dy = yt[:, None] - ys[None, :]
-    dz = zt[:, None] - zs[None, :]
-    xy2 = dx * dx + dy * dy
-    r2 = xy2 + dz * dz
-
-    rows = i * tr + lax.broadcasted_iota(jnp.int32, (tr, tc), 0)
-    cols = c * tc + lax.broadcasted_iota(jnp.int32, (tr, tc), 1)
-    self_mask = (rows == cols) if self_interaction else (
-        jnp.zeros((tr, tc), dtype=bool))
-    zero = self_mask | (r2 == 0.0)
-    r2s = jnp.where(zero, 1.0, r2)
-    invr = lax.rsqrt(r2s)
-    Rz = zt[:, None] + zs[None, :] if wall else None
-    zsr = zs[None, :]
-    ztr = zt[:, None]
-
-    @pl.when(c == 0)
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    # condense the pair-block coefficients ONCE; apply them to every RHS
-    # column (multi-RHS lockstep solves share the dominant per-pair work)
+def _pair_coeffs(coupling, dx, dy, dz, xy2, r2s, invr, self_mask, zero,
+                 wall, Rz, zsr, ztr):
+    """Condensed pair-block coefficients, evaluated once per pair and
+    applied to every right-hand side (multi-RHS solves share them)."""
     if coupling == "grand":
-        ctt = _tt_condense(dx, dy, dz, xy2, r2s, invr, self_mask, zero,
-                           wall, Rz, zsr)
-        ctr = _cross_condense(dx, dy, dz, xy2, r2s, invr, zero, wall,
-                              "tr", Rz, ztr)
-        crt = _cross_condense(dx, dy, dz, xy2, r2s, invr, zero, wall,
-                              "rt", Rz, zsr)
-        crr = _rr_condense(dx, dy, dz, xy2, r2s, invr, self_mask, zero,
-                           wall, Rz)
-        comps = []
-        for b in range(n_rhs):
-            o = 6 * b
-            fx, fy, fz = (v_ref[o + 0, :][None, :], v_ref[o + 1, :][None, :],
-                          v_ref[o + 2, :][None, :])
-            tx_, ty_, tz_ = (v_ref[o + 3, :][None, :],
-                             v_ref[o + 4, :][None, :],
-                             v_ref[o + 5, :][None, :])
-            # U = Mtt F + Mtr T ; W = Mrt F + Mrr T
-            ax, ay, az = _diag_apply(ctt, dx, dy, fx, fy, fz)
-            bx, by, bz = _cross_apply_condensed(ctr, dx, dy, dz, "tr",
-                                                tx_, ty_, tz_)
-            cx, cy, cz = _cross_apply_condensed(crt, dx, dy, dz, "rt",
-                                                fx, fy, fz)
-            ex, ey, ez_ = _diag_apply(crr, dx, dy, tx_, ty_, tz_)
-            comps += [ax + bx, ay + by, az + bz, cx + ex, cy + ey, cz + ez_]
-    else:
-        if coupling == "tt":
-            coeffs = _tt_condense(dx, dy, dz, xy2, r2s, invr, self_mask,
-                                  zero, wall, Rz, zsr)
-            apply_one = lambda vx, vy, vz: _diag_apply(
-                coeffs, dx, dy, vx, vy, vz)
-        elif coupling == "rr":
-            coeffs = _rr_condense(dx, dy, dz, xy2, r2s, invr, self_mask,
-                                  zero, wall, Rz)
-            apply_one = lambda vx, vy, vz: _diag_apply(
-                coeffs, dx, dy, vx, vy, vz)
-        elif coupling == "tr":
-            coeffs = _cross_condense(dx, dy, dz, xy2, r2s, invr, zero,
-                                     wall, "tr", Rz, ztr)
-            apply_one = lambda vx, vy, vz: _cross_apply_condensed(
-                coeffs, dx, dy, dz, "tr", vx, vy, vz)
-        elif coupling == "rt":
-            coeffs = _cross_condense(dx, dy, dz, xy2, r2s, invr, zero,
-                                     wall, "rt", Rz, zsr)
-            apply_one = lambda vx, vy, vz: _cross_apply_condensed(
-                coeffs, dx, dy, dz, "rt", vx, vy, vz)
-        else:
-            raise ValueError(coupling)
-        comps = []
-        for b in range(n_rhs):
-            o = 3 * b
-            comps += list(apply_one(v_ref[o + 0, :][None, :],
-                                    v_ref[o + 1, :][None, :],
-                                    v_ref[o + 2, :][None, :]))
+        return (_tt_condense(dx, dy, dz, xy2, r2s, invr, self_mask, zero,
+                             wall, Rz, zsr),
+                _cross_condense(dx, dy, dz, xy2, r2s, invr, zero, wall,
+                                "tr", Rz, ztr),
+                _cross_condense(dx, dy, dz, xy2, r2s, invr, zero, wall,
+                                "rt", Rz, zsr),
+                _rr_condense(dx, dy, dz, xy2, r2s, invr, self_mask, zero,
+                             wall, Rz))
+    if coupling == "tt":
+        return _tt_condense(dx, dy, dz, xy2, r2s, invr, self_mask, zero,
+                            wall, Rz, zsr)
+    if coupling == "rr":
+        return _rr_condense(dx, dy, dz, xy2, r2s, invr, self_mask, zero,
+                            wall, Rz)
+    if coupling in ("tr", "rt"):
+        h = ztr if coupling == "tr" else zsr
+        return _cross_condense(dx, dy, dz, xy2, r2s, invr, zero, wall,
+                               coupling, Rz, h)
+    raise ValueError(coupling)
 
-    for a, t in enumerate(comps):
-        out_ref[a, :] += jnp.sum(t, axis=1)
+
+def _pair_apply(coupling, coeffs, dx, dy, dz, v):
+    """Per-pair output components for one RHS (v: the nin source rows)."""
+    if coupling == "grand":
+        ctt, ctr, crt, crr = coeffs
+        fx, fy, fz, tx, ty, tz = v
+        # U = Mtt F + Mtr T ; W = Mrt F + Mrr T
+        ax, ay, az = _diag_apply(ctt, dx, dy, fx, fy, fz)
+        bx, by, bz = _cross_apply_condensed(ctr, dx, dy, dz, "tr",
+                                            tx, ty, tz)
+        cx, cy, cz = _cross_apply_condensed(crt, dx, dy, dz, "rt",
+                                            fx, fy, fz)
+        ex, ey, ez = _diag_apply(crr, dx, dy, tx, ty, tz)
+        return (ax + bx, ay + by, az + bz, cx + ex, cy + ey, cz + ez)
+    if coupling in ("tt", "rr"):
+        return _diag_apply(coeffs, dx, dy, *v)
+    return _cross_apply_condensed(coeffs, dx, dy, dz, coupling, *v)
+
+
+def _pair_kernel(*refs, coupling, wall, self_interaction, n_rhs, n_src,
+                 n_tgt, bt, bs):
+    """One program = `bt` targets. Sources stream through an in-kernel
+    loop of `bs`-wide tiles; the sums stay in registers as (bt, bs)
+    tiles, reduced over the source axis once, after the loop (a
+    reduction per loop step cost 20-25% on the card). Every in-kernel
+    constant is a python number (weak-typed), so x64 never promotes the
+    pair block."""
+    nin1, nout1 = _NCOMP[coupling]
+    nin, nout = nin1 * n_rhs, nout1 * n_rhs
+    qt, qs, v_refs = refs[0:3], refs[3:6], refs[6:6 + nin]
+    out_refs = refs[6 + nin:]
+    rows = pl.program_id(0) * bt + jnp.arange(bt, dtype=jnp.int32)
+    rmask = rows < n_tgt
+    xt = plgpu.load(qt[0].at[rows], mask=rmask, other=0.0)
+    yt = plgpu.load(qt[1].at[rows], mask=rmask, other=0.0)
+    zt = plgpu.load(qt[2].at[rows], mask=rmask, other=1.0)
+
+    def body(c, acc):
+        cols = c * bs + jnp.arange(bs, dtype=jnp.int32)
+        cmask = cols < n_src
+        xs = plgpu.load(qs[0].at[cols], mask=cmask, other=0.0)
+        ys = plgpu.load(qs[1].at[cols], mask=cmask, other=0.0)
+        zs = plgpu.load(qs[2].at[cols], mask=cmask, other=1.0)
+        # padded sources carry zero strength: their (finite) pair blocks
+        # contribute nothing
+        v = [plgpu.load(r.at[cols], mask=cmask, other=0.0)[None, :]
+             for r in v_refs]
+        dx = xt[:, None] - xs[None, :]
+        dy = yt[:, None] - ys[None, :]
+        dz = zt[:, None] - zs[None, :]
+        xy2 = dx * dx + dy * dy
+        r2 = xy2 + dz * dz
+        if self_interaction:
+            self_mask = rows[:, None] == cols[None, :]
+        else:
+            self_mask = jnp.zeros((bt, bs), dtype=jnp.bool_)
+        zero = self_mask | (r2 == 0.0)
+        r2s = jnp.where(zero, 1.0, r2)
+        invr = lax.rsqrt(r2s)
+        Rz = zt[:, None] + zs[None, :] if wall else None
+        coeffs = _pair_coeffs(coupling, dx, dy, dz, xy2, r2s, invr,
+                              self_mask, zero, wall, Rz, zs[None, :],
+                              zt[:, None])
+        comps = []
+        for b in range(n_rhs):
+            comps += _pair_apply(coupling, coeffs, dx, dy, dz,
+                                 v[b * nin1:(b + 1) * nin1])
+        return tuple(a + t for a, t in zip(acc, comps))
+
+    acc0 = tuple(jnp.zeros((bt, bs), jnp.float32) for _ in range(nout))
+    n_tiles = (n_src + bs - 1) // bs
+    acc = lax.fori_loop(jnp.int32(0), jnp.int32(n_tiles), body, acc0)
+    for r, a in zip(out_refs, acc):
+        plgpu.store(r.at[rows], jnp.sum(a, axis=1), mask=rmask)
 
 
 def pair_matvec_pallas(q_src, q_tgt, vec, *, coupling="tt", wall=True,
-                       self_interaction=True, row_tile=128, col_tile=None,
-                       interpret=False):
+                       self_interaction=True, tiles=None, interpret=False):
     """Fused pairwise matvec in normalized units (lengths already / a,
     z heights already shifted; caller applies damping and 1/(8 pi eta a^k)
     prefactors).
@@ -362,56 +365,39 @@ def pair_matvec_pallas(q_src, q_tgt, vec, *, coupling="tt", wall=True,
 
     vec may also stack B right-hand sides as (Ns, nin*B) (b-major
     columns): the per-pair geometry and condensed block coefficients are
-    evaluated ONCE and applied to every column; returns (Nt, nout*B)."""
+    evaluated ONCE and applied to every column; returns (Nt, nout*B).
+
+    tiles = (target tile, source tile, warps) overrides TILES. No
+    padding: ragged N is handled by masked loads and stores.
+    interpret=True runs the Pallas interpreter (tests)."""
+    backend.require_kernels(jnp.float32, interpret=interpret,
+                            what="pair_matvec_pallas")
     dtype = jnp.float32
     n_src = q_src.shape[0]
     n_tgt = q_tgt.shape[0]
     nin, nout = _NCOMP[coupling]
     n_rhs = vec.reshape(n_src, -1).shape[1] // nin
-    nin, nout = nin * n_rhs, nout * n_rhs
-    if col_tile is None:
-        # grand evaluates all four blocks per tile (more live temporaries);
-        # smaller col tiles keep it inside the Mosaic scoped-VMEM limit
-        col_tile = 256 if coupling == "grand" else 512
-        if n_rhs > 1:
-            col_tile = max(128, col_tile // 2)
-    v = vec.reshape(n_src, nin).astype(dtype)
+    bt, bs, warps = tiles or TILES
+    v = vec.reshape(n_src, nin * n_rhs).astype(dtype)
     q_src = q_src.astype(dtype)
     q_tgt = q_tgt.astype(dtype)
-
-    col_tile = min(col_tile, max(128, 1 << (n_src - 1).bit_length()))
-    row_tile = min(row_tile, max(8, 1 << (n_tgt - 1).bit_length()))
-    n_src_pad = -(-n_src // col_tile) * col_tile
-    n_tgt_pad = -(-n_tgt // row_tile) * row_tile
-
-    def pad1(x, n, fill):
-        return jnp.pad(x, (0, n - x.shape[0]), constant_values=fill)[None, :]
-
-    qtx = pad1(q_tgt[:, 0], n_tgt_pad, 0.0)
-    qty = pad1(q_tgt[:, 1], n_tgt_pad, 0.0)
-    qtz = pad1(q_tgt[:, 2], n_tgt_pad, 1.0)
-    qsx = pad1(q_src[:, 0], n_src_pad, 0.0)
-    qsy = pad1(q_src[:, 1], n_src_pad, 0.0)
-    qsz = pad1(q_src[:, 2], n_src_pad, 1.0)
-    vT = jnp.pad(v, ((0, n_src_pad - n_src), (0, 0))).T  # (nin, n_src_pad)
-
-    grid = (n_tgt_pad // row_tile, n_src_pad // col_tile)
-    kernel = functools.partial(_pair_kernel, coupling=coupling, wall=wall,
-                               self_interaction=self_interaction,
-                               n_rhs=n_rhs)
-    row_spec = pl.BlockSpec((1, row_tile), lambda i, c: (0, i),
-                            memory_space=pltpu.VMEM)
-    col_spec = pl.BlockSpec((1, col_tile), lambda i, c: (0, c),
-                            memory_space=pltpu.VMEM)
+    args = ([q_tgt[:, k] for k in range(3)] + [q_src[:, k] for k in range(3)]
+            + [v[:, k] for k in range(nin * n_rhs)])
+    kernel = functools.partial(
+        _pair_kernel, coupling=coupling, wall=wall,
+        self_interaction=self_interaction, n_rhs=n_rhs, n_src=n_src,
+        n_tgt=n_tgt, bt=bt, bs=bs)
+    any_spec = pl.BlockSpec(memory_space=pl.ANY)
     out = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[row_spec, row_spec, row_spec, col_spec, col_spec, col_spec,
-                  pl.BlockSpec((nin, col_tile), lambda i, c: (0, c),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((nout, row_tile), lambda i, c: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((nout, n_tgt_pad), dtype),
+        grid=((n_tgt + bt - 1) // bt,),
+        in_specs=[any_spec] * len(args),
+        out_specs=[any_spec] * (nout * n_rhs),
+        out_shape=[jax.ShapeDtypeStruct((n_tgt,), dtype)] * (nout * n_rhs),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=warps,
+                                             num_stages=2),
         interpret=interpret,
-    )(qtx, qty, qtz, qsx, qsy, qsz, vT)
-    return out[:, :n_tgt].T
+        name=f"pair_{coupling}",
+    )(*args)
+    return jnp.stack(out, axis=1)

@@ -1,13 +1,15 @@
-"""Multi-chip execution: row-sharded O(N^2) pairwise products over an ICI
-mesh.
+"""Multi-device execution: row-sharded O(N^2) pairwise products over a
+flat 1-D device mesh.
 
 The reference has no distributed backend (single process + in-process
-GPU/OpenMP; SURVEY.md section 2.4). The TPU-native equivalent decomposes
-the pair-interaction matrix into row blocks across devices:
+GPU/OpenMP; SURVEY.md section 2.4). The equivalent here decomposes the
+pair-interaction matrix into row blocks across devices:
 
   - blob positions and the input vector are replicated (small: O(N)),
   - each device computes its row block of the O(N^2) sweep locally,
-  - results are all-gathered back to replicated layout (O(N) on ICI).
+  - results are all-gathered back to replicated layout (O(N) over the
+    interconnect; NVLink joins the cards of one host all to all, so a
+    flat mesh needs no topology mapping).
 
 Body-level work (K products, 6x6 solves, GMRES recurrences) is O(B) and
 stays replicated; every device executes it redundantly, which costs less

@@ -1,6 +1,6 @@
 """Pseudo-2D radial distribution function g(r).
 
-TPU-framework version of the reference's standalone analysis executable
+This framework's version of the reference's standalone analysis executable
 (reference: multi_bodies/examples/Radial_Dist_Test/
 gr_pseudo2D_single_blob.cpp:20-85): pair distances use the minimum-image
 convention along x and y only but the full 3D separation, and the

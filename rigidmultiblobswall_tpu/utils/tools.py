@@ -1,5 +1,5 @@
 """Post-processing tools: trajectory-to-xyz conversion, histograms, and
-file averaging — the TPU-framework versions of the reference's `tools/`
+file averaging — this framework's versions of the reference's `tools/`
 scripts (tools/bodies_to_xyz.py, tools/histogram.py, tools/averageFiles.py).
 
 All functions are host-side numpy utilities usable both as a library and

@@ -80,9 +80,8 @@ def test_direct_forces_newton_third_law():
 
 
 def test_neighbor_list_pallas_cell_sweep_matches_generic():
-    """The fused Pallas cell sweep (the TPU fast path for fully-periodic
-    boxes, run here in interpret mode) is exact vs the generic
-    neighbor-list path and the direct sum."""
+    """The pre-gathered cell-layout sweep (the path fully-periodic
+    boxes take) is exact vs the direct sum."""
     rng = np.random.default_rng(9)
     L = 12.0
     r = jnp.asarray(rng.uniform(0, L, (350, 3)), jnp.float32)
@@ -90,7 +89,7 @@ def test_neighbor_list_pallas_cell_sweep_matches_generic():
     f_direct = force_ops.blob_blob_forces(r, **kw)
     rc = 2 * kw["blob_radius"] + 30 * kw["debye_length"]
     dims = tuple(min(int(L // rc), 16) for _ in range(3))
-    f_pl = force_ops._neighbor_forces_pallas(
+    f_pl = force_ops._neighbor_forces_layout(
         r, (L, L, L), dims, 64, kw["repulsion_strength"],
         kw["debye_length"], kw["blob_radius"])
     scale = float(jnp.max(jnp.abs(f_direct)))
@@ -99,9 +98,9 @@ def test_neighbor_list_pallas_cell_sweep_matches_generic():
 
 
 def test_neighbor_list_pallas_wall_slab_matches_direct():
-    """The wall-slab Pallas branch (xy-periodic, open z bounded by
-    spectral_wall_height; run here in interpret mode) is exact vs the
-    direct xy-periodic sum for in-slab configurations."""
+    """The wall-slab layout branch (xy-periodic, open z bounded by
+    spectral_wall_height) is exact vs the direct xy-periodic sum for
+    in-slab configurations."""
     import math
 
     rng = np.random.default_rng(11)
@@ -118,7 +117,7 @@ def test_neighbor_list_pallas_wall_slab_matches_direct():
     nd = min(int(L // rc), 16)
     cs_z = 1.001 * rc
     nz_w = max(int(math.ceil(z_hi / cs_z)), 1) + 1
-    f_pl = force_ops._neighbor_forces_pallas(
+    f_pl = force_ops._neighbor_forces_layout(
         r, (L, L, nz_w * cs_z), (nd, nd, nz_w), 64,
         kw["repulsion_strength"], kw["debye_length"], kw["blob_radius"],
         z_clip=(nz_w - 1) * cs_z * 0.999)

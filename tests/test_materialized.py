@@ -48,29 +48,3 @@ def test_solve_same_result_with_and_without_materialization():
                                               tol=1e-10)
     assert np.allclose(np.asarray(sol_mat.velocities),
                        np.asarray(sol_free.velocities), atol=1e-8)
-
-
-def test_symm_planes_matvec_matches_einsum():
-    """The upper-triangle symmetric Pallas matvec (interpret mode) must
-    reproduce the full einsum product, including for wall planes and
-    non-tile-multiple N."""
-    from rigidmultiblobswall_tpu.ops import mobility_pallas
-
-    rng = np.random.default_rng(40)
-    for n, domain in [(100, "single_wall"), (260, "no_wall"),
-                      (256, "single_wall")]:
-        r = rng.uniform(0, 4, (n, 3))
-        r[:, 2] += 0.3
-        planes = mob.dense_mobility_tiled(
-            jnp.asarray(r, jnp.float32), 1.0, 0.2, domain=domain,
-            periodic_length=(0.0, 0.0, 0.0))
-        # reciprocity symmetry backs the upper-triangle kernel
-        asym = jnp.max(jnp.abs(planes - jnp.transpose(planes, (1, 0, 3, 2))))
-        assert float(asym) < 1e-6
-        v = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
-        ref = jnp.einsum("abij,jb->ia", planes, v)
-        got = mobility_pallas.symm_planes_matvec(planes, v, tile=128,
-                                                 interpret=True)
-        scale = float(jnp.max(jnp.abs(ref)))
-        assert np.allclose(np.asarray(got), np.asarray(ref),
-                           atol=3e-6 * scale)

@@ -74,7 +74,7 @@ def _richardson(r, f, t, n_img=12):
 def setup():
     pos, f, t = _config(20, seed=3)
     params = ew.default_wall_params(A, ETA, (LBOX, LBOX), z_hi=3.4 * A,
-                                    tol=1e-5, near_impl="xla")
+                                    tol=1e-5)
     plan = ew.make_wall_plan(params, jnp.asarray(pos))
     tables = ewr.rot_tables_device(params, jnp.float64)
     u_ref, w_ref = _richardson(pos, f, t)

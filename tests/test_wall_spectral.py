@@ -32,7 +32,7 @@ def _config(n, seed=0, z_lo=1.2, z_hi=3.0):
 def plan6():
     pos, f = _config(6)
     params = ew.default_wall_params(A, ETA, (LBOX, LBOX), z_hi=3.5 * A,
-                                    tol=1e-4, near_impl="xla")
+                                    tol=1e-4)
     return ew.make_wall_plan(params, jnp.asarray(pos)), pos, f
 
 
@@ -87,7 +87,7 @@ def test_tol_controls_error(oracle6):
     pos, f = _config(6)
     scale = np.abs(oracle6).max()
     params = ew.default_wall_params(A, ETA, (LBOX, LBOX), z_hi=3.5 * A,
-                                    tol=1e-3, near_impl="xla")
+                                    tol=1e-3)
     plan = ew.make_wall_plan(params, jnp.asarray(pos))
     u = np.asarray(ew.matvec(plan, jnp.asarray(f)))
     err_loose = np.abs(u - oracle6).max() / scale
@@ -143,7 +143,7 @@ def test_overlap_regularization_matches_direct():
     against the damped converged lattice sum."""
     pos, f = _config(5, seed=7, z_lo=0.3, z_hi=2.5)  # some below a
     params = ew.default_wall_params(A, ETA, (LBOX, LBOX), z_hi=3.0 * A,
-                                    tol=1e-4, near_impl="xla")
+                                    tol=1e-4)
     plan = ew.make_wall_plan(params, jnp.asarray(pos))
     u = np.asarray(ew.matvec(plan, jnp.asarray(f)))
     damp = np.minimum(pos[:, 2] / A, 1.0)
@@ -174,7 +174,7 @@ def test_couette_mean_flow():
     f = np.zeros((n, 3))
     f[1:, 0] = 1.0
     params = ew.default_wall_params(A, ETA, (LBOX, LBOX), z_hi=3.5 * A,
-                                    tol=1e-4, near_impl="xla")
+                                    tol=1e-4)
     plan = ew.make_wall_plan(params, jnp.asarray(pos))
     u = np.asarray(ew.matvec(plan, jnp.asarray(f)))
     u1 = ew.brute_force_wall(pos, f, A, ETA, (LBOX, LBOX), n_img=40)
@@ -297,33 +297,13 @@ def test_brownian_step_runs():
     assert int(np.asarray(aux.det_iterations)[-1]) > 0
 
 
-def test_near_pallas_matches_xla():
-    """The fused Pallas wall near-field kernel (interpret mode on CPU)
-    agrees with the XLA cell sweep."""
-    pos, f = _config(6)
-    params = ew.default_wall_params(A, ETA, (LBOX, LBOX), z_hi=3.5 * A,
-                                    tol=1e-4, near_impl="pallas")
-    plan = ew.make_wall_plan(params, jnp.asarray(pos).astype(jnp.float32))
-    u_p = np.asarray(ew.near_matvec_pallas(plan, jnp.asarray(f, jnp.float32)))
-    u_x = np.asarray(ew.near_matvec_xla(plan, jnp.asarray(f, jnp.float32)))
-    scale = max(np.abs(u_x).max(), 1e-30)
-    assert np.abs(u_p - u_x).max() / scale < 2e-5
-
-    # multi-RHS path through the same kernel
-    F = np.stack([f, -0.5 * f], axis=0).astype(np.float32)
-    fb = jnp.asarray(np.moveaxis(F, 0, 1).reshape(len(pos), 6))
-    u_pm = np.asarray(ew.near_matvec_pallas(plan, fb))
-    u_xm = np.asarray(ew.near_matvec_xla(plan, fb))
-    assert np.abs(u_pm - u_xm).max() / scale < 2e-5
-
-
 def test_update_wall_plan_matches_rebuild():
     """update_wall_plan (position re-gathers, no re-sorting) reproduces
     a freshly built plan's matvec within the drift budget, and falls
     back to a full rebuild beyond it."""
     pos, f = _config(6)
     params = ew.default_wall_params(A, ETA, (LBOX, LBOX), z_hi=3.5 * A,
-                                    tol=1e-4, near_impl="xla")
+                                    tol=1e-4)
     plan = ew.make_wall_plan(params, jnp.asarray(pos))
     rng = np.random.default_rng(9)
     # small drift: refresh path
@@ -357,7 +337,7 @@ def test_wave_noise_split_covariance():
     pos = np.stack([rng.uniform(0, LBOX, n), rng.uniform(0, LBOX, n),
                     rng.uniform(0.3, 2.2, n)], 1)
     params = ew.default_wall_params(A, ETA, (LBOX, LBOX), z_hi=2.5,
-                                    tol=1e-3, near_impl="xla")
+                                    tol=1e-3)
     plan = ew.make_wall_plan(params, jnp.asarray(pos))
     t = ew._host_noise_tables(params)
     fac = ew._noise_factors_device(params, jnp.float64)

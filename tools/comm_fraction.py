@@ -2,7 +2,7 @@
 """Measure the communication fraction of the sharded spectral matvec
 (VERDICT r2 #4c: the round-2 "communication <1%" claim was a projection;
 this measures the STRUCTURE of the claim on the 8-virtual-CPU-device
-mesh — absolute CPU numbers do not transfer to ICI, but the byte counts
+mesh — absolute CPU numbers do not transfer to NVLink, but the byte counts
 and the collective/compute ratio scaling with N do).
 
 For each size: time (a) the full sharded matvec, (b) the same collective

@@ -10,7 +10,7 @@ that lever honestly on the bench geometry:
   1. step-0 solve: plain right-PC GMRES (single Arnoldi cycle),
      recording iterations-to-tolerance;
   2. harvest a k-dimensional recycle space from the smallest singular
-     directions of the Arnoldi Hessenberg (TPU-friendly: SVD, not
+     directions of the Arnoldi Hessenberg (accelerator-friendly: SVD, not
      nonsymmetric eig);
   3. advance the configuration by a realistic dt (the solved rigid
      velocities), rebuild the plan, refresh C = A~ U with ONE batched
@@ -19,7 +19,7 @@ that lever honestly on the bench geometry:
   4. solve the drifted system with GCRO-style deflation (project C out
      of the operator, correct through U) and compare iterations.
 
-Run on TPU or CPU:  python tools/deflation_experiment.py [n_bodies]
+Run on the GPU or CPU:  python tools/deflation_experiment.py [n_bodies]
 Prints per-step iteration counts and the net sweep-equivalent balance.
 """
 

@@ -23,8 +23,7 @@ from rigidmultiblobswall_tpu.ops import ewald_wall  # noqa: E402
 
 
 def _force(out):
-    leaf = jax.tree_util.tree_leaves(out)[0]
-    np.asarray(leaf)
+    jax.block_until_ready(out)
 
 
 def timeit(fn, *args, n=5, warmup=2):
